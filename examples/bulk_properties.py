@@ -20,7 +20,7 @@ The reference plugin exports trajectories to external analysis tools
 (PDB/NetCDF reporters); here the same observables come straight off the
 in-memory trajectory arrays.
 
-TPU:          python examples/bulk_properties.py 50000
+GPU:          python examples/bulk_properties.py 50000
 CPU (smoke):  JAX_PLATFORMS=cpu python examples/bulk_properties.py 200
 """
 import os
@@ -32,10 +32,8 @@ import jax
 
 if os.environ.get('JAX_PLATFORMS'):
     jax.config.update('jax_platforms', os.environ['JAX_PLATFORMS'])
-jax.config.update('jax_compilation_cache_dir',
-                  os.environ.get('JAX_COMPILATION_CACHE_DIR',
-                                 '/tmp/mbpol_jax_cache'))
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 2.0)
+from mbpol_openmm_plugin_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

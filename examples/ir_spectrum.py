@@ -12,7 +12,7 @@ libration <1000 cm^-1, HOH bend ~1650 cm^-1, OH stretch ~3400-3700 cm^-1
 (a classical-MD lineshape - no quantum correction beyond the harmonic
 omega^2 prefactor implicit in the derivative form).
 
-TPU:          python examples/ir_spectrum.py 40000
+GPU:          python examples/ir_spectrum.py 40000
 CPU (smoke):  JAX_PLATFORMS=cpu python examples/ir_spectrum.py 200
 """
 import os
@@ -24,9 +24,8 @@ import jax
 
 if os.environ.get('JAX_PLATFORMS'):
     jax.config.update('jax_platforms', os.environ['JAX_PLATFORMS'])
-jax.config.update('jax_compilation_cache_dir',
-                  os.environ.get('JAX_COMPILATION_CACHE_DIR',
-                                 '/tmp/mbpol_jax_cache'))
+from mbpol_openmm_plugin_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

@@ -22,7 +22,7 @@ slice of that protocol and prints the running density; the quick defaults
 below demonstrate the machinery, not converged ensemble averages (the
 volume autocorrelation time of water is ~10 ps).
 
-TPU:          python examples/isotope_density.py 20000 --beads 32
+GPU:          python examples/isotope_density.py 20000 --beads 32
 CPU (smoke):  JAX_PLATFORMS=cpu python examples/isotope_density.py 4 \
                   --beads 2 --interval 2 --classical
 """
@@ -35,10 +35,8 @@ import jax
 
 if os.environ.get('JAX_PLATFORMS'):
     jax.config.update('jax_platforms', os.environ['JAX_PLATFORMS'])
-jax.config.update('jax_compilation_cache_dir',
-                  os.environ.get('JAX_COMPILATION_CACHE_DIR',
-                                 '/tmp/mbpol_jax_cache'))
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 2.0)
+from mbpol_openmm_plugin_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 jax.config.update('jax_default_matmul_precision', 'highest')
 
 import jax.numpy as jnp

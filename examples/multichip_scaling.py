@@ -1,18 +1,19 @@
 #!/usr/bin/env python
-"""Multi-chip scaling harness: the script to run the day real multi-chip
-hardware exists - and, until then, a correctness run on a virtual CPU mesh.
+"""Multi-device scaling harness: a spatially sharded large water box on
+several GPUs, or a correctness run on a virtual CPU mesh.
 
 Builds water{2048|4096|8192} by replicating the water256 bulk fixture,
 sizes every padded capacity with parallel/plan.py (exact native counts),
-constructs the mesh-sharded potential (block-sparse Pallas electrostatics,
-molecule-pair dispersion, site-sharded PME), and runs one full evaluation
-plus a short MD scan, printing per-step wall time and the capacity plan.
+constructs the mesh-sharded potential (molecule-pair sparse
+electrostatics and dispersion, site-sharded PME), and runs one full
+evaluation plus a short MD scan, printing per-step wall time and the
+capacity plan.
 
 Usage:
-    # virtual 8-device CPU mesh (correctness; interpret-mode kernels):
+    # virtual 8-device CPU mesh (correctness, float64):
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        MBPOL_ELEC_PALLAS=interpret python examples/multichip_scaling.py 2048 8
-    # real chips: run under the default platform with n_devices <= len(jax.devices())
+        python examples/multichip_scaling.py 2048 8
+    # GPUs (float32): n_devices <= len(jax.devices())
     python examples/multichip_scaling.py 8192 4
 """
 import os
@@ -27,10 +28,8 @@ import jax
 
 if os.environ.get('JAX_PLATFORMS'):
     jax.config.update('jax_platforms', os.environ['JAX_PLATFORMS'])
-jax.config.update('jax_compilation_cache_dir',
-                  os.environ.get('JAX_COMPILATION_CACHE_DIR',
-                                 '/tmp/mbpol_jax_cache'))
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 2.0)
+from mbpol_openmm_plugin_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 jax.config.update('jax_default_matmul_precision', 'highest')
 import jax.numpy as jnp
 
@@ -54,7 +53,9 @@ pos_np = np.concatenate([fix['positions'] + np.array([i * b, j * b, k * b])
                          for k in range(reps[2])])
 box = [reps[0] * b, reps[1] * b, reps[2] * b]
 sys_ = System.waters(N_WATERS, box=box)
-dtype = jnp.float32 if jax.devices()[0].platform == 'tpu' else jnp.float64
+# float32 on accelerators; float64 on the CPU, where it is the
+# validation reference
+dtype = jnp.float64 if jax.devices()[0].platform == 'cpu' else jnp.float32
 pos = compute_virtual_sites(sys_, jnp.asarray(pos_np, dtype))
 
 cfg = MBPolConfig(nonbonded_method='PME', cutoff=0.9, target_epsilon=1e-3,

@@ -3,7 +3,7 @@
 
 The reference times MB-pol (vs AMOEBA) on the OpenMM Reference platform for
 {256, 512} waters x {PME, cluster}, 100 steps, and prints wall seconds.
-This port runs the same protocol on the TPU framework (the AMOEBA arm is
+This port runs the same protocol on this framework (the AMOEBA arm is
 out of scope - it is a different force field provided by OpenMM itself).
 
 Usage: python examples/run_benchmark.py [--steps 100] [--sizes 256,512]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """water14 cluster example: single-point energy/forces, minimization, NVE.
 
-Port of the reference driver python/water14.py to the TPU framework's app
+Port of the reference driver python/water14.py to this framework's app
 layer (imports swapped, OpenMM API shape preserved).
 """
 import os

@@ -17,7 +17,7 @@ all with the same potential (PME, 0.9 nm cutoff, f32 SCF at 1e-3) and
 per-step neighbor-list builds, and prints the centroid-virial quantum
 kinetic energy (zero-point motion of the OH stretches: KE_q >> 3/2 kT).
 
-TPU: python examples/water256_pimd.py [n_steps] [--full]
+GPU: python examples/water256_pimd.py [n_steps] [--full]
 CPU (slow): JAX_PLATFORMS=cpu python examples/water256_pimd.py 10
 """
 import dataclasses
@@ -31,10 +31,8 @@ import jax
 
 if os.environ.get('JAX_PLATFORMS'):
     jax.config.update('jax_platforms', os.environ['JAX_PLATFORMS'])
-jax.config.update('jax_compilation_cache_dir',
-                  os.environ.get('JAX_COMPILATION_CACHE_DIR',
-                                 '/tmp/mbpol_jax_cache'))
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 2.0)
+from mbpol_openmm_plugin_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 jax.config.update('jax_default_matmul_precision', 'highest')
 
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
-"""TPU-native MB-pol water potential framework.
+"""MB-pol water potential framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the MB-pol many-body water model
+A ground-up JAX/XLA re-design of the MB-pol many-body water model
 (capabilities of gmedders/mbpol_openmm_plugin): explicit one-body monomer
 distortion (Partridge-Schwenke PES), short-range two-body and three-body
 permutationally-invariant polynomial corrections, TT6-damped dispersion and
@@ -16,8 +16,8 @@ Layout
 - ``params``   frozen parameter pytrees + mbpol.xml loading
 - ``models``   the force terms (one_body, two_body, three_body, dispersion,
                electrostatics, pme) and the full ``MBPolPotential``
-- ``ops``      TPU building blocks: data-driven polynomial evaluation,
-               neighbor lists, B-splines, incomplete gamma, Pallas kernels
+- ``ops``      building blocks: data-driven polynomial evaluation,
+               neighbor lists, B-splines, incomplete gamma
 - ``md``       integrators, simulation loop (lax.scan), reporters, checkpoints
 - ``app``      OpenMM-app-compatible layer: PDB reading, ForceField,
                mbpol_builder-style script generation
@@ -30,11 +30,12 @@ import os as _os
 
 import jax as _jax
 
-# MB-pol's fitted polynomial coefficients cancel by ~4 orders of magnitude;
-# on TPU the default bf16 matmul passes corrupt energies by O(100 kcal/mol)
-# and forces badly enough to break NVE conservation. Force true-fp32 matmul
-# accumulation process-wide (opt out with MBPOL_NO_PRECISION_OVERRIDE=1; the
-# hot kernels additionally pin precision explicitly).
+# MB-pol's fitted polynomial coefficients cancel by ~4 orders of magnitude.
+# On a GPU the default float32 matmul precision lets XLA use TF32 (about 10
+# mantissa bits), which corrupts energies by O(100 kcal/mol) and forces
+# badly enough to break NVE conservation. Force full float32 matmuls
+# process-wide (opt out with MBPOL_NO_PRECISION_OVERRIDE=1; the PIP
+# contractions additionally pin HIGHEST explicitly).
 if not _os.environ.get('MBPOL_NO_PRECISION_OVERRIDE'):
     _jax.config.update('jax_default_matmul_precision', 'highest')
 

@@ -4,7 +4,7 @@ The reference exposes four Force classes (openmmapi/include/openmm/
 MBPol*Force.h) consumed either through the force-field layer or directly
 (as the C++/Python tests do). This module reproduces that surface - the
 parameter-container semantics plus direct evaluation helpers - on top of
-the TPU framework. Example:
+this framework. Example:
 
     from mbpol_openmm_plugin_tpu import api
     force = api.MBPolElectrostaticsForce()
@@ -52,7 +52,7 @@ class _TripletForce:
         return len(self._molecules)
 
     def _check_contiguous_ohhm(self):
-        """The TPU evaluation path assumes the stride-4 OHHM layout (like the
+        """The evaluation path assumes the stride-4 OHHM layout (like the
         reference's electrostatics, cpp:879-884). Map arbitrary index
         triplets onto it."""
         idx = np.asarray(self._molecules, np.int64)

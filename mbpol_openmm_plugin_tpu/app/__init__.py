@@ -3,7 +3,7 @@
 The reference is consumed through OpenMM's application layer
 (app.PDBFile / app.ForceField / app.Simulation / reporters; see
 python/water14.py, python/example_nvt_nve.py, python/bin/mbpol_builder).
-This package provides the same surface on top of the TPU framework so those
+This package provides the same surface on top of this framework so those
 driver scripts port by swapping imports:
 
     from mbpol_openmm_plugin_tpu import app

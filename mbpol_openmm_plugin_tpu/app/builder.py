@@ -3,7 +3,7 @@
 Consumes the same configuration format as the reference's
 python/bin/mbpol_builder (sections [system]/[integrator]/[thermostat]/
 [barostat]/[logging]; see python/mbpol_config.ini and python/example_ini/),
-emitting a driver script against the TPU framework's app layer.
+emitting a driver script against this framework's app layer.
 """
 from __future__ import annotations
 

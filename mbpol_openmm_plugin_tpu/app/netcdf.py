@@ -50,7 +50,7 @@ class NetCDFReporter:
         nc.application = b'mbpol_openmm_plugin_tpu'
         nc.program = b'mbpol_openmm_plugin_tpu'
         nc.programVersion = b'1.1.1'
-        nc.title = b'MB-pol TPU trajectory'
+        nc.title = b'MB-pol JAX trajectory'
 
         nc.createDimension('frame', None)
         nc.createDimension('spatial', 3)

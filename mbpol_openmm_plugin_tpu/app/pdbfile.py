@@ -7,7 +7,9 @@ CRYST1 box records; python/tests/pdb_files/*).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import List
 
 import numpy as np
@@ -53,12 +55,14 @@ class Topology:
 
 
 class PDBFile:
-    """Reads HETATM/ATOM records; positions exposed in nm (Quantity)."""
+    """Reads HETATM/ATOM records; positions exposed in nm (Quantity).
+    `file` is a path or an open text stream (as in OpenMM's PDBFile)."""
 
-    def __init__(self, filename):
+    def __init__(self, file):
         names, resnames, resids, pos = [], [], [], []
         box = None
-        with open(filename) as f:
+        with (open(file) if isinstance(file, (str, os.PathLike))
+              else contextlib.nullcontext(file)) as f:
             for line in f:
                 if line.startswith(('ATOM', 'HETATM')):
                     names.append(line[12:16].strip())

@@ -1,4 +1,4 @@
-"""app.Simulation-compatible driver over the TPU MD engine."""
+"""app.Simulation-compatible driver over the JAX MD engine."""
 from __future__ import annotations
 
 import time

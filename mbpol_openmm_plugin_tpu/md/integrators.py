@@ -1,4 +1,4 @@
-"""Integrators and thermostats/barostats, TPU-native.
+"""Integrators and thermostats/barostats, as pure on-device functions.
 
 The reference delegates time stepping to OpenMM (Verlet integrator, Andersen
 thermostat as a Force, MonteCarlo barostat; SURVEY 3.4). Here the whole MD
@@ -86,7 +86,7 @@ def respa_velocity_verlet_step(system: System, ef_fast, ef_slow,
     exp(dt_i/2 L_fast)]^n exp(dt/2 L_slow).
 
     The reference integrates with OpenMM's single-timestep Verlet (SURVEY
-    3.4); this is the OpenMM MTSIntegrator role, TPU-native (the inner loop
+    3.4); this is the OpenMM MTSIntegrator role, on device (the inner loop
     is a lax.scan, the whole step stays one pure function on device).
 
     `f_slow` must be the slow forces at state.positions (carried across
@@ -145,8 +145,8 @@ def respa3_velocity_verlet_step(system: System, ef_fast, ef_mid, ef_slow,
     with the ASPC *predictor* produces forces that differ from the
     previous step's final half-kick (computed with the *corrected*
     dipoles at the same positions), a per-outer-step force discontinuity
-    that destroys the splitting's time symmetry (measured r5:
-    +35,900 K/ns with the re-evaluation vs carried below). When None,
+    that destroys the splitting's time symmetry (strong NVE heating with
+    the re-evaluation vs the carried forces below). When None,
     the fast forces are re-evaluated (exact for the stateless monomer
     term). Returns (state', f_mid', f_slow', f_fast') with state'.forces
     the total and potential_energy the full fast+mid+slow PE at the new
@@ -178,7 +178,7 @@ def respa3_velocity_verlet_step(system: System, ef_fast, ef_mid, ef_slow,
     # lets ef_fast itself carry trace-time aux state - required when the
     # polarization (ASPC dipole history) lives on the fast rung
     # (SimulationConfig.respa_polarization_rung='inner', the
-    # energy-conserving RESPA operating point measured round 5)
+    # energy-conserving RESPA operating point)
     e_fast_last = None
     e_mid = None
     for _ in range(n_mid):

@@ -3,7 +3,7 @@
 The reference delegates minimization to OpenMM's LocalEnergyMinimizer
 (L-BFGS; used by the builder's minimization configs, reference
 bin/mbpol_builder template and examples/example_ini/
-mbpol_cluster_minimization.ini). TPU-native equivalent: limited-memory BFGS
+mbpol_cluster_minimization.ini). On-device equivalent: limited-memory BFGS
 with a fixed-depth history and an Armijo backtracking line search, the whole
 minimization a single `lax.while_loop` - no host round-trips per iteration.
 

@@ -85,8 +85,7 @@ def virial_pressure(potential, positions, velocities=None,
             # forward-mode: reverse cannot cross the SCF while_loop, but a
             # JVP carries the tangent through it (and the variational
             # energy makes the dipole-tangent contribution vanish at
-            # convergence). The traced box also routes electrostatics onto
-            # the XLA (non-Pallas) path.
+            # convergence).
             one = jnp.asarray(1.0, pos0.dtype)
             return jax.jvp(energy, (one,), (one,))[1]
 

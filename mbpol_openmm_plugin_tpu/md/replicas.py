@@ -1,6 +1,6 @@
 """Replica-batched force evaluation (PIMD-style beads).
 
-The reference mentions PIMD only as science context (README.md:13); the TPU
+The reference mentions PIMD only as science context (README.md:13); this
 framework makes bead/replica parallelism a one-liner: vmap the potential
 over a leading replica axis. Used for path-integral beads, ensemble MD, or
 batched free-energy evaluations (BASELINE config 5).

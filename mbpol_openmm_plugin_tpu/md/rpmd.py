@@ -1,12 +1,12 @@
-"""Thermostatted ring-polymer MD (PIMD / T-RPMD), TPU-native.
+"""Thermostatted ring-polymer MD (PIMD / T-RPMD) on device.
 
 The reference cites path-integral MD as the method MB-pol is used with
 (README.md:13) but ships no PIMD machinery - it delegates to external
 drivers. Here the framework provides it natively, built from the pieces
-the TPU design already has: the bead-replicated potential is a `vmap`
+the framework already has: the bead-replicated potential is a `vmap`
 over a leading bead axis (md/replicas.py), the exact free ring-polymer
-evolution is a pair of static [n, n] normal-mode matmuls (MXU-friendly,
-no FFT needed at PIMD bead counts), and the whole step is a pure
+evolution is a pair of static [n, n] normal-mode matmuls (no FFT needed
+at PIMD bead counts), and the whole step is a pure
 function on an `MDState` pytree (bead-leading shapes) that runs under
 `lax.scan` like the classical integrators.
 
@@ -222,9 +222,9 @@ def make_rpmd_step(system: System, energy_forces_fn, n_beads, dt,
     ring_polymer_hamiltonian.
     mesh: optional `jax.sharding.Mesh` with a 'dp' axis. Beads are
     embarrassingly parallel in the potential evaluation (the dominant
-    cost), so the bead axis is sharded over 'dp': each chip evaluates
-    n/n_chips beads' full MB-pol forces; the tiny [n, n] normal-mode
-    matmuls contract the sharded axis and XLA inserts the ICI
+    cost), so the bead axis is sharded over 'dp': each device evaluates
+    n/n_devices beads' full MB-pol forces; the tiny [n, n] normal-mode
+    matmuls contract the sharded axis and XLA inserts the
     collectives. The trajectory is bitwise independent of the mesh
     (noise is drawn from the replicated key at full bead shape).
     """
@@ -545,9 +545,8 @@ class PIMDSimulation:
         # NPT: MC volume moves on the ring polymer every barostat_interval
         # steps (rpmd_barostat_move: centroid scaling, spring-invariant).
         # The box becomes trajectory state, so the per-bead evaluations
-        # take it as a traced argument - which also means the static-box
-        # Pallas electrostatics kernels give way to the XLA path, exactly
-        # like the classical NPT driver (models/pme.py static-box guard).
+        # take it as a traced argument, exactly like the classical NPT
+        # driver.
         self._npt = barostat_pressure is not None
         if self._npt:
             if not potential.system.periodic:

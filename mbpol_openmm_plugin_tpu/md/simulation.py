@@ -119,13 +119,12 @@ class SimulationConfig:
     #   'mid'   - reference split (2b + dispersion + electrostatics at
     #             dt/respa_mid). The ASPC closure then advances at the
     #             MID cadence where its error - and the dissipative
-    #             dipole-lag drift - grows steeply (measured r5:
-    #             -2748 K/ns at n_corr=1, -636 at n_corr=2;
-    #             tools/respa_drift.py).
+    #             dipole-lag drift - grows steeply
+    #             (tools/respa_drift.py measures it).
     #   'inner' - electrostatics joins the monomer term on the FAST rung
     #             (dt/(respa_mid*respa_inner) = the base 0.2 fs step), so
     #             the ASPC closure runs at exactly the single-step cadence
-    #             (the +5-15 K/ns regime) while the 3B/2B savings remain.
+    #             (its low-drift regime) while the 3B/2B savings remain.
     #             Costs one SCF+PME per base step (like single-step);
     #             the speedup comes from 3B at 1/(mid*inner) and
     #             2b+dispersion at 1/mid cadence.
@@ -158,13 +157,10 @@ class Simulation:
             # Under three-level r-RESPA the ASPC predictor runs at the MID
             # cadence (dt * respa_inner) where its closure error - and the
             # dissipative dipole-lag drift - grows steeply with the step
-            # (Kolafa error ~ dt^(k+2)). Measured (r5 chip ladder,
-            # tools/respa_drift.py, water256 10 ps): n_corr=1 -2748 K/ns,
-            # n_corr=2 -636, n_corr=4 -245; fully-converged DIIS mid-rung
-            # (scf='keep' on a diis potential, eps 1e-6) reaches +70. The
-            # auto default deepens the corrector to 2 for RESPA runs
-            # (~5% mid-rung cost); single-step keeps n_corr from the
-            # potential config (the +5-15 K/ns regime needs no extra).
+            # (Kolafa error ~ dt^(k+2)); a deeper corrector shrinks that
+            # drift severalfold (tools/respa_drift.py measures it). The
+            # auto default deepens the corrector to 2 for RESPA runs;
+            # single-step keeps n_corr from the potential config.
             n_corr = None
             if (self.config.respa_mid > 1
                     and self.config.respa_polarization_rung != 'inner'):
@@ -444,15 +440,14 @@ class Simulation:
         if polar_inner:
             # polarization on the base-step rung: the ASPC closure
             # advances at dt/(respa_mid*respa_inner) - the single-step
-            # cadence whose drift is the measured +5-15 K/ns regime
+            # cadence and its low-drift regime
             # (respa_polarization_rung='inner'); requires the unrolled
             # inner loop so this closure can thread its aux state.
             # The fast forces are CARRIED across outer steps (f_fast):
             # re-evaluating at the step boundary with the ASPC predictor
             # yields forces that differ from the previous final half-kick
             # (corrected dipoles, same positions) - a per-outer-step
-            # force discontinuity measured at +35,900 K/ns
-            # (artifacts/respa_inner_r05.jsonl, the pre-carry run). With
+            # force discontinuity that heats NVE strongly. With
             # the carry, every ef_fast call is an inner-loop evaluation
             # at a fresh position and advances the history - uniform
             # dti cadence, no duplicates. A group-boundary seed (no
@@ -509,9 +504,8 @@ class Simulation:
         warm = cfg.scf_warm_start and self.potential.elec_params is not None
         # ASPC closure (potential scf_method='aspc'): the scan carries the
         # last k+2 corrected dipole sets and feeds the B_j-weighted
-        # predictor into the single SOR-damped corrector each step. The
-        # history machinery is measured free on TPU (unlike per-step scan
-        # diagnostics); see models/electrostatics.scf_induced_dipoles_aspc.
+        # predictor into the single SOR-damped corrector each step; see
+        # models/electrostatics.scf_induced_dipoles_aspc.
         aspc = warm and self.potential.config.scf_method == 'aspc'
         B = (jnp.asarray(elec.aspc_predictor_coefficients(
                  self.potential.config.aspc_k), state.positions.dtype)
@@ -581,11 +575,10 @@ class Simulation:
 
             def body(carry, _):
                 # HOT PATH: the only per-step scan output is the potential
-                # energy. Emitting per-step health flags or kinetic energy
-                # from inside the scan was measured to cost 0.25-0.8
-                # ms/step on TPU (water256: 252 -> 184 steps/s; an XLA
-                # scheduling effect - anything derived from the SCF
-                # while_loop or an extra reduction breaks overlap). The
+                # energy. Per-step health flags or kinetic energy emitted
+                # from inside the scan can break XLA's overlap of the step
+                # (anything derived from the SCF while_loop or an extra
+                # reduction). The
                 # unused health value below is dead-code-eliminated by XLA;
                 # health is instead checked at report boundaries (step()).
                 s, m, fm, fs, nc, ff = carry
@@ -708,7 +701,7 @@ class Simulation:
                 self.state, self._baro, chunk)
             if check_health:
                 # The hot scan emits only per-step PE (in-scan health flags
-                # cost 0.25-0.8 ms EVERY step on TPU - see _step_chunk_impl);
+                # would cost time EVERY step - see _step_chunk_impl);
                 # instead pay ONE diagnostic evaluation per report boundary
                 # (~a single step's cost, amortized over the interval) plus
                 # a NaN check on the PE trace, which catches mid-chunk

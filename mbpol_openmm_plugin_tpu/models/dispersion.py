@@ -43,9 +43,9 @@ def switch_factor(r2, cutoff, width):
 
     width = 0 reproduces the reference's PLAIN truncation - which makes
     the dispersion force field discontinuous at the cutoff sphere: every
-    pair crossing r = 0.9 nm does non-conservative work ~C6/r^6, measured
-    round 4 as the bulk of the +200 K/ns no-electrostatics NVE drift at
-    water256 (tools/nve_drift.py --terms). The switch keeps energy AND
+    pair crossing r = 0.9 nm does non-conservative work ~C6/r^6, the
+    bulk of the no-electrostatics NVE drift at water256
+    (tools/nve_drift.py --terms). The switch keeps energy AND
     forces consistent for free because the dispersion forces come from
     autodiff of this energy. OpenMM exposes exactly this option on
     CustomNonbondedForce (setUseSwitchingFunction); the reference script
@@ -70,7 +70,7 @@ def dispersion_energy(system: System, positions, cutoff=None, box=None,
 
     The per-pair C6/d6 tables are expanded on-device from the [N] class
     vector via one-hot matmuls ([N,4] @ [4,4] @ [4,N]) - avoiding both
-    per-element gathers (serialized on TPU) and [N,N] literals in the HLO.
+    per-element gathers and [N,N] literals in the HLO.
     """
     ff = _data.load('forcefield')
     dtype = positions.dtype

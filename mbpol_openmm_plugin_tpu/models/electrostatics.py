@@ -16,7 +16,7 @@ Physics (reference: MBPolReferenceElectrostaticsForce.cpp):
   - charge-derivative forces: contraction of dq/dr with damped per-site
     potentials (cpp:791-827).
 
-Notes on the TPU design:
+Design notes:
   * The reference carries a second "polar" copy of the induced dipoles
     (AMOEBA heritage, where p-scale != d-scale exclusions). In MB-pol both
     copies see identical fields and identical updates from identical initial
@@ -26,7 +26,7 @@ Notes on the TPU design:
     reference's golden energies/forces.
   * All O(N^2) loops become dense masked [N, N] tensor ops; the SCF
     iteration is matmul-shaped (field = S3 @ mu + contraction with the
-    precomputed displacement tensor), which maps onto the MXU.
+    precomputed displacement tensor).
   * Forces use the reference's explicit formulas (valid at SCF convergence)
     rather than autodiff through the iteration.
 """
@@ -72,8 +72,8 @@ class ElecParams:
     # omega-mix (CP2K ASPC convention). 1 = Kolafa's single damped
     # corrector; each extra iteration costs one dipole-field evaluation
     # (~2-3% of a step) and shrinks the closure's force lag - the term
-    # that dominates long-horizon f32 NVE drift (measured round 4:
-    # integrator-rounding compensation alone left the drift unchanged).
+    # that dominates long-horizon f32 NVE drift (integrator-rounding
+    # compensation alone leaves the drift unchanged).
     aspc_n_corr: int = 1
     # Lowest SCF target honored at f32 (None = env/1e-4 default; see
     # _f32_eps_floor - the typed knob for the round-4 dissipation finding)
@@ -296,9 +296,9 @@ def _f32_eps_floor(override=None):
 
     The historical clamp was 1e-4 (round 2): the convergence metric
     (polarSOR * debye * sqrt(|dmu|^2/N), ~Debye units) was assumed to hit
-    the f32 noise floor there. Round 4 measurement: the f32 SOR loop at
-    eps 1e-4 is strongly DISSIPATIVE in NVE (-10,000 K/ns on water256 -
-    the lagging dipoles do negative work every step), and the metric's
+    the f32 noise floor there. But the f32 SOR loop at eps 1e-4 is
+    strongly DISSIPATIVE in NVE (water256: the lagging dipoles do
+    negative work every step), and the metric's
     actual f32 resolution is ~|mu| * 2^-24 ~ 3e-8 D, so far tighter
     targets are representable. The floor stays overridable rather than
     hard-wired: the typed config field (MBPolConfig.scf_eps_floor ->
@@ -316,8 +316,7 @@ def _f32_eps_floor(override=None):
 
 def scf_induced_dipoles_diis(efield_alpha, alpha, s3, s5, delta, target_epsilon,
                              max_iterations, extra_field=None, mu0=None,
-                             depth=5, dipole_field=None, n_eps=None,
-                             eps_floor=None):
+                             depth=5, eps_floor=None):
     """DIIS/Anderson-accelerated SCF (the reference's CUDA platform uses DIIS
     for the same reason, multipoleInducedField.cu:374-482 - but solves the
     small system on the host; here everything stays on device).
@@ -329,15 +328,14 @@ def scf_induced_dipoles_diis(efield_alpha, alpha, s3, s5, delta, target_epsilon,
     Convergence metric matches the reference (polarSOR * debye *
     sqrt(|r|^2/N)), so `converged` means the same thing as the SOR path.
     """
-    n = n_eps or efield_alpha.shape[0]   # metric divisor: ACTIVE sites
+    n = efield_alpha.shape[0]
     dtype = efield_alpha.dtype
     big = jnp.asarray(jnp.finfo(dtype).max / 4, dtype)
     if dtype == jnp.float32:
         target_epsilon = max(target_epsilon, _f32_eps_floor(eps_floor))
 
     def gmap(mu):
-        field = (_dipole_field(mu, s3, s5, delta) if dipole_field is None
-                 else dipole_field(mu))
+        field = _dipole_field(mu, s3, s5, delta)
         if extra_field is not None:
             field = field + extra_field(mu)
         return efield_alpha + field * alpha[:, None]
@@ -346,9 +344,9 @@ def scf_induced_dipoles_diis(efield_alpha, alpha, s3, s5, delta, target_epsilon,
     M = K - 1   # Anderson mixing dimension (differences vs the newest slot)
 
     def chol_solve(A, b):
-        """Unrolled Cholesky solve for a tiny static SPD system - TPU-friendly
-        scalar ops (jnp.linalg.solve inside a while_loop is catastrophically
-        slow on TPU)."""
+        """Unrolled Cholesky solve for a tiny static SPD system: a few scalar
+        ops fused into the loop body instead of a linear-algebra library
+        call per SCF iteration."""
         L = [[None] * M for _ in range(M)]
         for i in range(M):
             for j in range(i + 1):
@@ -411,7 +409,7 @@ def scf_induced_dipoles_diis(efield_alpha, alpha, s3, s5, delta, target_epsilon,
 
 def scf_induced_dipoles(efield_alpha, alpha, s3, s5, delta, target_epsilon,
                         max_iterations, extra_field=None, mu0=None,
-                        dipole_field=None, n_eps=None, eps_floor=None):
+                        eps_floor=None):
     """SOR fixed-point iteration for the induced dipoles.
 
     Args:
@@ -427,7 +425,7 @@ def scf_induced_dipoles(efield_alpha, alpha, s3, s5, delta, target_epsilon,
     polarSOR*debye*sqrt(sum|dmu|^2/N), stop on convergence, divergence
     (epsilon increase) or max iterations.
     """
-    n = n_eps or efield_alpha.shape[0]   # metric divisor: ACTIVE sites
+    n = efield_alpha.shape[0]
     dtype = efield_alpha.dtype
     big = jnp.asarray(jnp.finfo(dtype).max / 4, dtype)
     if dtype == jnp.float32:
@@ -438,8 +436,7 @@ def scf_induced_dipoles(efield_alpha, alpha, s3, s5, delta, target_epsilon,
         target_epsilon = max(target_epsilon, _f32_eps_floor(eps_floor))
 
     def one_iter(mu):
-        field = (_dipole_field(mu, s3, s5, delta) if dipole_field is None
-                 else dipole_field(mu))
+        field = _dipole_field(mu, s3, s5, delta)
         if extra_field is not None:
             field = field + extra_field(mu)
         new = efield_alpha + field * alpha[:, None]
@@ -495,8 +492,7 @@ def aspc_predictor_coefficients(k):
 
 def scf_induced_dipoles_aspc(efield_alpha, alpha, s3, s5, delta, target_epsilon,
                              max_iterations, extra_field=None, mu0=None,
-                             dipole_field=None, omega=5.0 / 9.0, n_corr=1,
-                             n_eps=None, eps_floor=None):
+                             omega=5.0 / 9.0, n_corr=1, eps_floor=None):
     """Always-stable predictor-corrector (Kolafa ASPC) dipole closure.
 
     Exactly ONE damped SCF iteration applied to the caller-supplied predictor
@@ -519,9 +515,8 @@ def scf_induced_dipoles_aspc(efield_alpha, alpha, s3, s5, delta, target_epsilon,
         return scf_induced_dipoles(efield_alpha, alpha, s3, s5, delta,
                                    target_epsilon, max_iterations,
                                    extra_field=extra_field,
-                                   dipole_field=dipole_field, n_eps=n_eps,
                                    eps_floor=eps_floor)
-    n = n_eps or efield_alpha.shape[0]   # metric divisor: ACTIVE sites
+    n = efield_alpha.shape[0]
 
     # The corrector must be THIS MODEL'S convergent self-consistency
     # iteration - the SOR-damped step (polarSOR * dmu), not the bare Picard
@@ -537,8 +532,7 @@ def scf_induced_dipoles_aspc(efield_alpha, alpha, s3, s5, delta, target_epsilon,
     # force-closure error that dominates long-horizon f32 NVE drift.
     # n_corr = 1 reduces exactly to Kolafa's mu0 + omega*polarSOR*dmu.
     def one_sor(mu):
-        field = (_dipole_field(mu, s3, s5, delta) if dipole_field is None
-                 else dipole_field(mu))
+        field = _dipole_field(mu, s3, s5, delta)
         if extra_field is not None:
             field = field + extra_field(mu)
         dmu = efield_alpha + field * alpha[:, None] - mu

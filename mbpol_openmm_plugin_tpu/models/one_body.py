@@ -9,9 +9,9 @@ Physics (reference: MBPolReferenceOneBodyForce.cpp:69-201):
     (cpp:103-105), energy correction +0.44739574026257 cm^-1 (cpp:166),
     units cm^-1 -> kcal/mol -> kJ/mol.
 
-TPU design: molecules are batched along the leading axis; the 245-term
-polynomial is evaluated with one-hot gather matrices contracted on the MXU
-(vander powers @ one-hot), and forces come from jax.grad of this function
+Design: molecules are batched along the leading axis; the 245-term
+polynomial is evaluated with one-hot gather matrices contracted as a
+matmul (vander powers @ one-hot), and forces come from jax.grad of this function
 (the reference's hand-derived gradients are the exact derivative of the same
 expression; parity is asserted in tests/test_one_body.py against the golden
 forces of TestReferenceMBPolOneBodyForce.cpp:98-107).

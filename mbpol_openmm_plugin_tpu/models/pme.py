@@ -13,10 +13,10 @@ MBPolReferenceElectrostaticsForce.cpp:1095-2777):
     potential (direct + recip fixed + recip induced + self) contracted with
     dq/dr (cpp:2767-2773).
 
-TPU design notes:
-  * charge/dipole spreading is a scatter-add over each atom's 5x5x5 spline
-    neighborhood; read-back is the transposed gather + einsum contraction.
-  * the FFT is jnp.fft (XLA-native); the backward transform follows the
+Design notes:
+  * charge/dipole spreading and potential read-back are dense matmuls over
+    separable one-hot spline matrices (_spline_matrices).
+  * the FFT is jnp.fft (cuFFT on a GPU); the backward transform follows the
     unnormalized-sum convention of the reference's fftpack (ifftn * Ntot).
   * the vestigial "polar" dipole copy is folded out (mu_polar == mu, see
     models/electrostatics.py); the reference's re/im spreading trick for the
@@ -82,12 +82,12 @@ def _spline_matrices(setup: PmeSetup, positions, box=None, mesh=None):
     grid line g (zero outside the atom's 5-point support; periodic wrap).
 
     This turns both charge/dipole spreading and potential read-back into
-    dense matmuls - no scatter/gather, which are serialized on TPU.
+    dense matmuls.
 
     Under a `mesh` the site dimension carries a 'dp' sharding constraint,
     which shards the whole reciprocal grid pipeline: spreading contracts
     the sharded site dim (per-device partial grids + one psum of the tiny
-    [nx,ny,nz] grid over ICI), the convolution runs replicated (noise-level
+    [nx,ny,nz] grid), the convolution runs replicated (noise-level
     cost), and read-back is row-parallel in the sites with no collective.
     """
     dims = jnp.asarray(setup.grid)
@@ -116,7 +116,7 @@ def _spline_matrices(setup: PmeSetup, positions, box=None, mesh=None):
 # The separable formulation materializes [chunk, ny, nz] (spread) and
 # [chunk, 3, ny, nz] (readback) temporaries. Single-shot at water256
 # (~MBs) they are free; at 32k sites x 106^2 grid lines they are 1.5-4.4
-# GB each and OOM the chip, so above this element budget the site
+# GB each and exhaust device memory, so above this element budget the site
 # dimension is chunked under an accumulating scan (spread) / lax.map
 # (readback). Budget 2^26 f32 elements = 256 MB per temporary.
 _SEP_CHUNK_ELEMS = 1 << 26
@@ -193,12 +193,11 @@ def _readback_phi10(grid, Sx, Sy, Sz):
 
     Performance-critical formulation: the P-tensor form
     (_readback_separable + _phi10) lowers its h/k contractions to per-site
-    batched [27,27]@[27,3] matmuls - thousands of tiny, padded MXU ops that
-    dominate the whole electrostatics evaluation (0.177 of 0.200 ms at
-    water256, tools/elec_breakdown.py). Here the z contraction is three
-    well-shaped [n, nz] @ [nz, nx*ny] MXU matmuls and the y/x contractions
-    are VPU multiply-reduces, which is ~6x faster end to end. Site-chunked
-    above the temp-memory budget like the other separable pieces."""
+    batched [27,27]@[27,3] matmuls - thousands of tiny, padded matmuls.
+    Here the z contraction is three well-shaped [n, nz] @ [nz, nx*ny]
+    matmuls and the y/x contractions are elementwise multiply-reduces.
+    Site-chunked above the temp-memory budget like the other separable
+    pieces."""
     n = Sx.shape[0]
     nx, ny, nz = grid.shape
     gz = grid.reshape(nx * ny, nz).T                      # [nz, nx*ny]
@@ -223,44 +222,6 @@ def _readback_phi10(grid, Sx, Sy, Sz):
     return out.reshape(k * c, len(_PHI_COMP))[:n]
 
 
-@functools.lru_cache(maxsize=None)
-def _dft_mats(n, inverse=False):
-    """Dense DFT matrix (cos, sin parts) for one grid axis."""
-    k = np.arange(n)
-    ang = 2.0 * np.pi * np.outer(k, k) / n
-    sgn = 1.0 if inverse else -1.0
-    return np.cos(ang), sgn * np.sin(ang)
-
-
-def _dft_axis(re, im, axis, n, inverse, dtype):
-    """Complex DFT along one axis as real matmuls (MXU-friendly)."""
-    c, s = _dft_mats(n, inverse)
-    cm = jnp.asarray(c, dtype)
-    sm = jnp.asarray(s, dtype)
-    hi = jax.lax.Precision.HIGHEST
-    rm = jnp.moveaxis(re, axis, -1)
-    pr = jnp.einsum('...k,kg->...g', rm, cm, precision=hi)
-    pi = jnp.einsum('...k,kg->...g', rm, sm, precision=hi)
-    if im is not None:
-        imm = jnp.moveaxis(im, axis, -1)
-        pr = pr - jnp.einsum('...k,kg->...g', imm, sm, precision=hi)
-        pi = pi + jnp.einsum('...k,kg->...g', imm, cm, precision=hi)
-    return jnp.moveaxis(pr, -1, axis), jnp.moveaxis(pi, -1, axis)
-
-
-def _use_matmul_dft():
-    """PME grids are tiny (~32^3): on TPU, dense per-axis DFT matmuls on the
-    MXU are ~30x faster than jnp.fft (which lowers to a slow generic FFT;
-    measured 1.45 ms for one 27^3 fwd+inv pair on v5e vs ~0.05 ms as
-    matmuls). CPU keeps jnp.fft (fast there, exact f64 for goldens).
-    Override with MBPOL_PME_FFT=fft|dft."""
-    import os
-    choice = os.environ.get('MBPOL_PME_FFT', 'auto')
-    if choice == 'auto':
-        return jax.default_backend() == 'tpu'
-    return choice == 'dft'
-
-
 def _convolve(setup: PmeSetup, grid, dtype, box=None):
     """Forward FFT, reciprocal eterm multiply, backward (unnormalized) FFT.
     (performMBPolReciprocalConvolution, cpp:1676-1713). The eterm is a cheap
@@ -269,20 +230,10 @@ def _convolve(setup: PmeSetup, grid, dtype, box=None):
     nx, ny, nz = setup.grid
     et = _eterm(setup, grid.dtype if box is None else None, box)
     ntot = nx * ny * nz
-    if not _use_matmul_dft():
-        gk = jnp.fft.fftn(grid)
-        gk = gk * et
-        # real input, real symmetric kernel -> real result (unnormalized backward)
-        return jnp.real(jnp.fft.ifftn(gk) * ntot)
-    re, im = grid, None
-    for axis, n in enumerate(setup.grid):
-        re, im = _dft_axis(re, im, axis, n, False, grid.dtype)
-    re = re * et.astype(grid.dtype)
-    im = im * et.astype(grid.dtype)
-    # unnormalized inverse (= ifftn * ntot): conjugate transform, no 1/N
-    for axis, n in enumerate(setup.grid):
-        re, im = _dft_axis(re, im, axis, n, True, grid.dtype)
-    return re
+    gk = jnp.fft.fftn(grid)
+    gk = gk * et
+    # real input, real symmetric kernel -> real result (unnormalized backward)
+    return jnp.real(jnp.fft.ifftn(gk) * ntot)
 
 
 @functools.lru_cache(maxsize=None)
@@ -351,19 +302,11 @@ def _bn_factors(alpha, r, inv_r, orders=4):
 
 
 def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions,
-                       mesh=None, mu0=None, box=None, block=None):
+                       mesh=None, mu0=None, box=None):
     """PME energy (kJ/mol), forces (kJ/mol/nm), diagnostics.
 
     positions: [N,3] nm with M sites placed. `mesh` row-shards the dense
     direct-space tensors across the 'dp' axis (see parallel/mesh.py).
-    `block`: optional dict enabling the block-sparse Pallas direct-space
-    path for large N (ops/elec_pallas_bs.py): keys `site_perm` /
-    `site_perm_inv` (numpy int32 spatial sort of the sites) and
-    `tile_pair_capacity` (static size of the active tile-pair list).
-    O(N) memory at fixed density; requires the same eligibility as the
-    dense kernels (TPU f32, static box). Under a mesh, row tiles split
-    over 'dp' with per-device local tile-pair lists
-    (`tile_pair_capacity_local`).
     """
     dtype = positions.dtype
     f_elec = units.ELECTRIC
@@ -376,102 +319,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions,
     alpha_pol = jnp.asarray(params.polarity, dtype)
     th = params.thole
 
-    # Fused Pallas kernels for the direct-space pair work (TPU f32, static
-    # box, unsharded): recompute the whole pair chain per VMEM tile instead
-    # of materializing ~35 [N,N] tensors in HBM (ops/elec_pallas.py).
-    from mbpol_openmm_plugin_tpu.ops import elec_pallas
-    # static box is required (the kernels bake setup.box as constants); a
-    # mesh is fine - the sharded wrappers shard_map row tiles over 'dp'
-    eligible = not isinstance(box, jnp.ndarray)
-    use_kernels = elec_pallas.use_pallas(dtype) and eligible
-    interpret = False
-    import os
-    if os.environ.get('MBPOL_ELEC_PALLAS') == 'interpret' and eligible:
-        # interpret-mode override for CPU testing of the kernels; it must
-        # still respect the static-box eligibility
-        use_kernels, interpret = True, True
-    use_bs = block is not None and use_kernels
-    sharded = use_kernels and mesh is not None and not use_bs
-    bs_sharded = use_bs and mesh is not None
-    bs_diag = {}
-    # triangular (symmetry-halved) kernels for the unsharded dense path:
-    # ~half the VPU pair-chain work, identical physics (the sharded path
-    # keeps the full grid - a triangular split would load-imbalance the
-    # row shards). MBPOL_ELEC_TRI=0 opts out.
-    use_tri = (use_kernels and not sharded and not use_bs
-               and os.environ.get('MBPOL_ELEC_TRI', '1') != '0')
-
-    if use_bs:
-        from mbpol_openmm_plugin_tpu.ops import elec_pallas_bs as bs
-        perm = np.asarray(block['site_perm'])
-        inv = np.asarray(block['site_perm_inv'])
-        cap = int(block['tile_pair_capacity'])
-        d16_inv = jnp.asarray(
-            np.asarray(params.damping, np.float64) ** (-1.0 / 6.0), dtype)
-        if bs_sharded:
-            # row tiles split over the mesh: per-device LOCAL tile-pair
-            # lists (ops/elec_pallas_bs.py sharded wrappers)
-            ndev = mesh.devices.size
-            np_s = elec_pallas.padded_for_mesh(n, ndev)
-            srow = elec_pallas.pack_sites(
-                positions[perm], charges[perm], d16_inv[perm],
-                jnp.asarray(params.mol_index[perm]),
-                jnp.asarray((params.atom_type == 0)[perm]), pad_to=np_s)
-            cap_l = int(block.get('tile_pair_capacity_local')
-                        or (cap * 13) // (10 * ndev) + 8)
-            ti, tj, meta, n_act_d = bs.active_tile_pairs_sharded(
-                srow[:, :3], n, box, setup.cutoff, cap_l, mesh)
-            bs_diag['elec_tile_pairs'] = jnp.sum(n_act_d)
-            bs_diag['elec_tile_overflow'] = jnp.any(n_act_d > cap_l)
-            ef_dir_s, s3b, s5b = bs.fixed_field_and_scf_blocks_sharded(
-                setup, th, srow, n, ti, tj, meta, mesh, interpret=interpret)
-        else:
-            srow = elec_pallas.pack_sites(
-                positions[perm], charges[perm], d16_inv[perm],
-                jnp.asarray(params.mol_index[perm]),
-                jnp.asarray((params.atom_type == 0)[perm]))
-            ti, tj, meta, n_act = bs.active_tile_pairs(
-                srow[:, :3], n, box, setup.cutoff, cap)
-            bs_diag['elec_tile_pairs'] = n_act
-            bs_diag['elec_tile_overflow'] = n_act > cap
-            ef_dir_s, s3b, s5b = bs.fixed_field_and_scf_blocks(
-                setup, th, srow, n, ti, tj, meta, interpret=interpret)
-        s3_dir = s5_dir = delta = None
-    elif use_kernels:
-        d16_inv = jnp.asarray(
-            np.asarray(params.damping, np.float64) ** (-1.0 / 6.0), dtype)
-        bvec = jnp.asarray(box, dtype)
-        if sharded:
-            # rows sharded over the mesh: everything [np_, ...] stays PADDED
-            # (padded rows give exact zeros in s3/s5 and alpha, so the SCF
-            # runs at the padded size with no resharding slices)
-            np_s = elec_pallas.padded_for_mesh(n, mesh.devices.size)
-            srow = elec_pallas.pack_sites(
-                positions, charges, d16_inv,
-                jnp.asarray(params.mol_index),
-                jnp.asarray(params.atom_type == 0), pad_to=np_s)
-            ef_direct, s3_dir, s5_dir = \
-                elec_pallas.fixed_field_and_scf_factors_sharded(
-                    setup, th, srow, n, mesh, interpret=interpret)
-            from mbpol_openmm_plugin_tpu.parallel import mesh as M
-            pos_p = jnp.zeros((np_s, 3), dtype).at[:n].set(positions)
-            delta = pos_p[None, :, :] - pos_p[:, None, :]
-            delta = delta - jnp.floor(delta / bvec + 0.5) * bvec
-            delta = M.constrain(delta, M.row_sharded(mesh))
-        else:
-            srow = elec_pallas.pack_sites(
-                positions, charges, d16_inv,
-                jnp.asarray(params.mol_index), jnp.asarray(params.atom_type == 0))
-            k1_fn = (elec_pallas.fixed_field_and_scf_factors_tri if use_tri
-                     else elec_pallas.fixed_field_and_scf_factors)
-            ef_direct, s3_dir, s5_dir = k1_fn(
-                setup, th, srow, n, interpret=interpret)
-            if s3_dir.shape[0] != n:
-                s3_dir = s3_dir[:n, :n]
-                s5_dir = s5_dir[:n, :n]
-            delta = positions[None, :, :] - positions[:, None, :]
-            delta = delta - jnp.floor(delta / bvec + 0.5) * bvec
-    else:
+    with jax.named_scope('elec_direct'):
         # ---- pair tensors (minimum image, cutoff) ----
         t = elec._pair_tensors(params, positions,
                                periodic_delta=lambda d: d - jnp.floor(
@@ -512,20 +360,16 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions,
 
     # ---- fixed field: reciprocal + direct + (no self for charges) ----
     efield = -pscale[None, :] * phi[:, 1:4]               # recordFixedElectrostaticsField
-    if use_bs:
-        efield = efield + ef_dir_s[inv]
-    elif use_kernels:
-        efield = efield + ef_direct
-    else:
+    with jax.named_scope('elec_direct'):
         # direct space (calculateFixedElectrostaticsFieldPairIxn PME, cpp:1342-1407)
         # Cross-water damping correction sign FIXED vs the reference
         # (cpp:1386-1388, marked "FIXME verify this" there): the reference
         # uses kdir = bn1 - (s3-1)*rr3, i.e. bn1 + (1-s3)*rr3, which makes
         # the SCF's fixed-field OPERATOR disagree with the energy's q-mu
-        # coupling (bn1 - rr3*(1-s3cd), e_pair below) - measured round 5 as
-        # a force/energy inconsistency of ~3% of the total electrostatic
-        # force at water256 (first order in mu, concentrated on Thole-
-        # damped H-bond pairs), heating f32 NVE at O(100) K/ns. With the
+        # coupling (bn1 - rr3*(1-s3cd), e_pair below) - a force/energy
+        # inconsistency of ~3% of the total electrostatic force at
+        # water256 (first order in mu, concentrated on Thole-damped
+        # H-bond pairs) that heats f32 NVE. With the
         # sign fixed the PME fixed field also matches the cluster field
         # (lambda3*rr3) in the alpha->0 huge-box limit, which the
         # reference's own formula does not for damped pairs. Same-water
@@ -536,8 +380,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions,
         kdir = jnp.where(within, kdir, 0.0)
         efield = efield - jnp.einsum('ij,j,ijd->id', kdir, charges, delta)
 
-    # ---- SCF ----
-    if not use_kernels:
+        # SCF dipole-dipole prefactors
         s3_dir = jnp.where(within, (1.0 - s_dd[3]) * rr3c - bn1, 0.0)   # preFactor1
         s5_dir = jnp.where(within, bn2 - (1.0 - s_dd[5]) * rr5c, 0.0)   # preFactor2
     self_term = (4.0 / 3.0) * alpha ** 3 / _SQRT_PI
@@ -558,70 +401,14 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions,
         phid = mu_recip_phi(mu)
         return -pscale[None, :] * phid[:, 1:4] + self_term * mu
 
-    dipole_field = None
-    if use_bs:
-        np_ = srow.shape[0]
-
-        def dipole_field(mu):
-            mp = jnp.zeros((np_, elec_pallas._NS), dtype).at[:n, :3].set(mu[perm])
-            if bs_sharded:
-                f_s = bs.scf_dipole_field_bs_sharded(
-                    setup, th, srow, s3b, s5b, mp, ti, tj, meta, n, mesh,
-                    interpret=interpret)
-            else:
-                f_s = bs.scf_dipole_field_bs(setup, th, srow, s3b, s5b, mp,
-                                             ti, tj, meta, n,
-                                             interpret=interpret)
-            return f_s[inv]
-
     scf = elec.make_scf(params)
-    if sharded:
-        # padded SCF: padded rows have alpha = 0 and zero s3/s5 rows/cols,
-        # so their dipoles stay exactly 0; the epsilon metric divides by
-        # the ACTIVE site count (n_eps) to keep reference semantics
-        def _pad(a):
-            return jnp.zeros((np_s,) + a.shape[1:], a.dtype).at[:n].set(a)
+    mu, diag = scf(
+        efield * alpha_pol[:, None], alpha_pol, s3_dir, s5_dir, delta,
+        params.target_epsilon, params.max_iterations, extra_field=extra_field,
+        mu0=mu0)
 
-        def extra_field_p(mu_p):
-            return _pad(extra_field(mu_p[:n]))
-
-        mu_p, diag = scf(
-            _pad(efield * alpha_pol[:, None]), _pad(alpha_pol),
-            s3_dir, s5_dir, delta,
-            params.target_epsilon, params.max_iterations,
-            extra_field=extra_field_p,
-            mu0=None if mu0 is None else _pad(mu0), n_eps=n)
-        mu = mu_p[:n]
-    else:
-        mu, diag = scf(
-            efield * alpha_pol[:, None], alpha_pol, s3_dir, s5_dir, delta,
-            params.target_epsilon, params.max_iterations, extra_field=extra_field,
-            mu0=mu0, dipole_field=dipole_field)
-    diag = dict(diag, **bs_diag)
-
-    # ---- direct-space energy/forces/potential ----
-    if use_bs:
-        if bs_sharded:
-            e_direct, force_s, pot_s = bs.direct_energy_force_pot_bs_sharded(
-                setup, th, srow, mu[perm], n, ti, tj, meta, mesh,
-                interpret=interpret)
-        else:
-            e_direct, force_s, pot_s = bs.direct_energy_force_pot_bs(
-                setup, th, srow, mu[perm], n, ti, tj, meta,
-                interpret=interpret)
-        forces = -f_elec * force_s[inv]
-        pot = pot_s[inv]
-    elif use_kernels and sharded:
-        e_direct, force_pair, pot = elec_pallas.direct_energy_force_pot_sharded(
-            setup, th, srow, mu, n, mesh, interpret=interpret)
-        forces = -f_elec * force_pair
-    elif use_kernels:
-        k2_fn = (elec_pallas.direct_energy_force_pot_tri if use_tri
-                 else elec_pallas.direct_energy_force_pot)
-        e_direct, force_pair, pot = k2_fn(
-            setup, th, srow, mu, n, interpret=interpret)
-        forces = -f_elec * force_pair
-    else:
+    with jax.named_scope('elec_direct'):
+        # ---- direct-space energy/forces/potential ----
         mu_dot_d_i = jnp.einsum('id,ijd->ij', mu, delta)
         mu_dot_d_j = jnp.einsum('jd,ijd->ij', mu, delta)
         qq = charges[:, None] * charges[None, :]

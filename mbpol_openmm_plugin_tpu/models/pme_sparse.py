@@ -69,7 +69,7 @@ def pme_electrostatics_sparse(params: elec.ElecParams, setup: pme_mod.PmeSetup,
       pair_mask: [P] validity for padding.
       mesh: optional jax.sharding.Mesh - the pair dimension P is partitioned
         over the 'dp' axis; XLA turns the per-molecule segment sums into
-        partial sums + psum over ICI (parallel/mesh.py). Positions, the
+        partial sums + psum (parallel/mesh.py). Positions, the
         [nmol,4,*] intra block and the PME grids stay replicated.
     """
     dtype = positions.dtype

@@ -22,7 +22,6 @@ import numpy as np
 
 from mbpol_openmm_plugin_tpu import data as _data
 from mbpol_openmm_plugin_tpu.models.two_body import _safe_norm, f_switch
-from mbpol_openmm_plugin_tpu.ops.gather import gather_rows
 from mbpol_openmm_plugin_tpu.ops.polyeval import pip_apply
 from mbpol_openmm_plugin_tpu.system import System, water_positions
 from mbpol_openmm_plugin_tpu.utils import units
@@ -51,14 +50,12 @@ def _image_triplet(pos_a, pos_b, pos_c, box):
     return tuple(out)
 
 
-def three_body_energy_triplets(pos_a, pos_b, pos_c, valid, pip=None):
+def three_body_energy_triplets(pos_a, pos_b, pos_c, valid):
     """Three-body energy for a batch of molecule triplets.
 
     Args:
       pos_a/b/c: [T, 3, 3] monomer positions (O,H1,H2) in Angstrom.
       valid: [T] bool mask.
-      pip: optional (impl, basis) pair selecting the polynomial evaluator
-        (MBPolConfig.pip_impl/pip_basis; None entries = env/default).
     Returns:
       [T] energies in kcal/mol.
     """
@@ -118,8 +115,7 @@ def three_body_energy_triplets(pos_a, pos_b, pos_c, valid, pip=None):
         var(kOO, dOO, oa, ob), var(kOO, dOO, oa, oc), var(kOO, dOO, ob, oc),
     ], axis=-1)
 
-    impl, basis = pip or (None, None)
-    e_poly = pip_apply('poly3b', impl=impl, basis=basis)(x)
+    e_poly = pip_apply('poly3b')(x)
 
     sab = f_switch(rab, c['r3i'], c['r3f'])
     sac = f_switch(rac, c['r3i'], c['r3f'])
@@ -129,8 +125,7 @@ def three_body_energy_triplets(pos_a, pos_b, pos_c, valid, pip=None):
     return jnp.where(active, s * e_poly, jnp.zeros((), dtype))
 
 
-def three_body_energy(system: System, positions, triplets=None, triplet_mask=None, box=None,
-                      pip=None):
+def three_body_energy(system: System, positions, triplets=None, triplet_mask=None, box=None):
     """Total three-body energy in kJ/mol.
 
     Args:
@@ -149,12 +144,12 @@ def three_body_energy(system: System, positions, triplets=None, triplet_mask=Non
     if triplet_mask is None:
         triplet_mask = jnp.ones(len(triplets), bool)
     wflat = wpos.reshape(-1, 9)
-    pos_a = gather_rows(wflat, triplets[:, 0]).reshape(-1, 3, 3)
-    pos_b = gather_rows(wflat, triplets[:, 1]).reshape(-1, 3, 3)
-    pos_c = gather_rows(wflat, triplets[:, 2]).reshape(-1, 3, 3)
+    pos_a = wflat[triplets[:, 0]].reshape(-1, 3, 3)
+    pos_b = wflat[triplets[:, 1]].reshape(-1, 3, 3)
+    pos_c = wflat[triplets[:, 2]].reshape(-1, 3, 3)
     if system.periodic:
         b = system.box if box is None else box
         box_a = jnp.asarray(b, positions.dtype) * units.NM_TO_ANGSTROM
         pos_a, pos_b, pos_c = _image_triplet(pos_a, pos_b, pos_c, box_a)
-    e_kcal = three_body_energy_triplets(pos_a, pos_b, pos_c, triplet_mask, pip=pip)
+    e_kcal = three_body_energy_triplets(pos_a, pos_b, pos_c, triplet_mask)
     return jnp.sum(e_kcal) * units.KCAL_PER_MOL_TO_KJ_PER_MOL

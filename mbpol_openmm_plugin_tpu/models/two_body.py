@@ -9,7 +9,7 @@ Physics (reference: MBPolReferenceTwoBodyForce.cpp:110-296):
     (cpp:170-207) feeding a degree-4 PIP with 1153 fit coefficients,
   - optional periodic imaging of the molecule pair (cpp:66-109).
 
-TPU design: pairs are batched; the PIP evaluates as matmuls
+Design: pairs are batched; the PIP evaluates as matmuls
 (ops/polyeval.py). Forces come from jax.grad of the total energy - the
 reference's chain-rule gradients (variable::grads, monomer::grads, switch
 gradient) are the exact derivative of the same expression; parity is
@@ -21,7 +21,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from mbpol_openmm_plugin_tpu import data as _data
-from mbpol_openmm_plugin_tpu.ops.gather import gather_rows
 from mbpol_openmm_plugin_tpu.ops.polyeval import pip_apply
 from mbpol_openmm_plugin_tpu.system import System, water_positions
 from mbpol_openmm_plugin_tpu.utils import units
@@ -77,15 +76,13 @@ def _safe_norm(d, eps=1e-12):
     return jnp.sqrt(jnp.maximum(jnp.sum(d * d, axis=-1), eps))
 
 
-def two_body_energy_pairs(pos_a, pos_b, valid, pip=None):
+def two_body_energy_pairs(pos_a, pos_b, valid):
     """Two-body energy for a batch of molecule pairs.
 
     Args:
       pos_a, pos_b: [P, 3, 3] monomer positions (O,H1,H2) in Angstrom,
         already imaged if periodic.
       valid: [P] bool mask for padded/invalid entries.
-      pip: optional (impl, basis) pair selecting the polynomial evaluator
-        (MBPolConfig.pip_impl/pip_basis; None entries = env/default).
     Returns:
       [P] pair energies in kcal/mol.
     """
@@ -158,14 +155,12 @@ def two_body_energy_pairs(pos_a, pos_b, valid, pip=None):
         v_exp_inter(c['k_XX_main'], xa2, xb2),
     ], axis=-1)
 
-    impl, basis = pip or (None, None)
-    e_poly = pip_apply('poly2b', impl=impl, basis=basis)(x)
+    e_poly = pip_apply('poly2b')(x)
     sw = f_switch(roo, c['r2i'], c['r2f'])
     return jnp.where(active, sw * e_poly, jnp.zeros((), dtype))
 
 
-def two_body_energy(system: System, positions, pairs=None, pair_mask=None, box=None,
-                    pip=None):
+def two_body_energy(system: System, positions, pairs=None, pair_mask=None, box=None):
     """Total two-body energy in kJ/mol.
 
     Args:
@@ -182,11 +177,11 @@ def two_body_energy(system: System, positions, pairs=None, pair_mask=None, box=N
     if pair_mask is None:
         pair_mask = jnp.ones(len(pairs), bool)
     wflat = wpos.reshape(-1, 9)
-    pos_a = gather_rows(wflat, pairs[:, 0]).reshape(-1, 3, 3)
-    pos_b = gather_rows(wflat, pairs[:, 1]).reshape(-1, 3, 3)
+    pos_a = wflat[pairs[:, 0]].reshape(-1, 3, 3)
+    pos_b = wflat[pairs[:, 1]].reshape(-1, 3, 3)
     if system.periodic:
         b = system.box if box is None else box
         box_a = jnp.asarray(b, positions.dtype) * units.NM_TO_ANGSTROM
         pos_a, pos_b = _image_pair(pos_a, pos_b, box_a)
-    e_kcal = two_body_energy_pairs(pos_a, pos_b, pair_mask, pip=pip)
+    e_kcal = two_body_energy_pairs(pos_a, pos_b, pair_mask)
     return jnp.sum(e_kcal) * units.KCAL_PER_MOL_TO_KJ_PER_MOL

@@ -95,7 +95,7 @@ def triplet_list(o_pos, box, cutoff, capacity, k_max=None, kt=None,
     block to `kt` slots (n small independent sorts), stage 2 places every
     center's run at its exclusive-cumsum offset (searchsorted + gather).
     A single flat nonzero over the [n*K*K] candidate tensor lowers to one
-    huge bitonic sort on TPU and was measured 1.6-2x slower; K itself is
+    huge sort; K itself is
     the main cost lever (MBPol.tune_capacities sizes it from the actual
     neighbor counts).
 

@@ -1,11 +1,13 @@
-"""Device mesh utilities for multi-chip evaluation.
+"""Device mesh utilities for multi-device evaluation.
 
 The reference has no distributed execution (single-thread CPU / single GPU;
-SURVEY 2.6). Beyond-parity design for the TPU framework: every term shards
+SURVEY 2.6). Beyond-parity design: every term shards
 over a 1-D 'dp' mesh axis - the one-body molecule batch, 2b pair batches,
 3b triplet batches, the dispersion pair-grid rows, and the dense
 electrostatics row dimension; XLA inserts the collectives (psum for
-energy/force reductions, all-gathers for the SCF dipole vector) over ICI.
+energy/force reductions, all-gathers for the SCF dipole vector). The
+mesh is 1-D over jax.devices(): every GPU of a host reaches every other
+over NVLink at the same rate, so the layout follows the algorithm alone.
 The PME grid pipeline shards its SITE dimension (spline matrices carry a
 'dp' constraint: spreading psums per-device partial grids, read-back is
 row-parallel); only the grid convolution itself stays replicated - the

@@ -1,10 +1,10 @@
-"""Multi-chip capacity planning: the one place that answers "what does an
+"""Multi-device capacity planning: the one place that answers "what does an
 (n_devices, N)-water run look like" before any device executes.
 
 The padded-list capacities are trace-time constants (static shapes), so a
 sharded run must size them up front: per-device pair/triplet batch rows,
-the block-sparse electrostatics tile-pair lists (global + per-device
-local), the PME grid, and the dominant per-device memory terms. MBPol's
+the molecule-pair lists, the PME grid, and the dominant per-device memory
+terms. MBPol's
 `tune_capacities` does this for a live potential from real positions; the
 planner does the same arithmetic standalone - analytic density bounds when
 no positions exist yet, exact native voxel-hash counts when they do - and
@@ -51,9 +51,6 @@ class CapacityPlan:
     nlist_kt: Optional[int]
     elec_pair_cap: Optional[int]          # sparse mode
     disp_pair_cap: Optional[int]          # pairs mode (non-shared)
-    tile_pair_capacity: Optional[int]     # block mode (global)
-    tile_pair_capacity_local: Optional[int]   # block mode (per device)
-    site_perm: Optional[np.ndarray]       # block mode sorted layout
     pme_grid: Optional[tuple]
     exact: bool                           # counts from positions vs analytic
     mem_per_device_mb: float
@@ -62,11 +59,9 @@ class CapacityPlan:
         nd = self.n_devices
         out = dict(pair_rows=self.pair_cap // nd,
                    triplet_rows=self.trip_cap // nd,
-                   sites=_round_up(4 * self.n_waters, 256 * nd) // nd)
+                   sites=_round_up(4 * self.n_waters, nd) // nd)
         if self.elec_pair_cap:
             out['elec_pair_rows'] = self.elec_pair_cap // nd
-        if self.tile_pair_capacity_local:
-            out['elec_tile_pairs_local'] = self.tile_pair_capacity_local
         return out
 
     def describe(self):
@@ -83,9 +78,6 @@ class CapacityPlan:
         ]
         if self.elec_pair_cap:
             lines.append(f'  elec molecule-pair capacity {self.elec_pair_cap}')
-        if self.tile_pair_capacity:
-            lines.append(f'  elec tile pairs {self.tile_pair_capacity} '
-                         f'(local/device {self.tile_pair_capacity_local})')
         lines.append('  per device: ' + '  '.join(
             f'{k}={v}' for k, v in self.per_device().items()))
         lines.append(f'  est. working set ~{self.mem_per_device_mb:.0f} '
@@ -106,7 +98,7 @@ class CapacityPlan:
 
 
 def plan_capacities(n_waters, box, n_devices=1, config=None, positions=None,
-                    margin=1.15, pallas_ok=None):
+                    margin=1.15):
     """Size every static shape for an (n_devices, n_waters) run.
 
     positions: optional [4*n_waters, 3] nm array - when given, pair/triplet
@@ -114,11 +106,9 @@ def plan_capacities(n_waters, box, n_devices=1, config=None, positions=None,
     (tune_capacities semantics: margin * actual + slack); otherwise from
     the analytic density bounds (neighbors.pair_capacity/triplet_capacity,
     conservative by design).
-    pallas_ok: force the block-kernel eligibility (default: probe
-    ops.elec_pallas.use_pallas for f32 - True on TPU or under
-    MBPOL_ELEC_PALLAS=interpret).
     """
-    from mbpol_openmm_plugin_tpu.models.potential import MBPolConfig
+    from mbpol_openmm_plugin_tpu.models.potential import (
+        MBPolConfig, electrostatics_mode_for)
     cfg = config or MBPolConfig(nonbonded_method='PME', cutoff=0.9,
                                 nlist_skin=0.02)
     box = np.asarray(box, np.float64)
@@ -170,24 +160,14 @@ def plan_capacities(n_waters, box, n_devices=1, config=None, positions=None,
     pair_eval_cap = _round_up(pair_eval_cap, n_devices)
     trip_eval_cap = _round_up(trip_eval_cap, n_devices)
 
-    # electrostatics mode (MBPol.__init__ auto policy)
-    if pallas_ok is None:
-        from mbpol_openmm_plugin_tpu.ops import elec_pallas
-        import jax.numpy as jnp
-        pallas_ok = elec_pallas.use_pallas(jnp.float32)
+    # electrostatics mode (MBPol.__init__ policy)
     is_pme = cfg.nonbonded_method == 'PME'
-    mode = cfg.electrostatics_mode
-    if mode == 'auto':
-        dense_limit = (2560 * max(n_devices // 2, 1)) if pallas_ok else 512
-        mode = (('block' if pallas_ok else 'sparse')
-                if is_pme and n_waters > dense_limit else 'dense')
+    mode = electrostatics_mode_for(cfg, n_waters)
     dmode = cfg.dispersion_mode
     if dmode == 'auto':
-        dmode = 'pairs' if mode in ('sparse', 'block') else 'dense'
+        dmode = 'pairs' if mode == 'sparse' else 'dense'
 
     elec_pair_cap = disp_pair_cap = None
-    tile_cap = tile_cap_local = None
-    site_perm = None
     n_sites = 4 * n_waters
     if mode == 'sparse' or dmode == 'pairs':
         from mbpol_openmm_plugin_tpu.models import pme_sparse
@@ -203,28 +183,6 @@ def plan_capacities(n_waters, box, n_devices=1, config=None, positions=None,
             elec_pair_cap = cap      # shared with the dispersion pair list
         else:
             disp_pair_cap = cap
-    if mode == 'block':
-        from mbpol_openmm_plugin_tpu.ops import elec_pallas as EP
-        from mbpol_openmm_plugin_tpu.ops import elec_pallas_bs as BS
-        npad = (EP.padded_for_mesh(n_sites, n_devices) if n_devices > 1
-                else BS._padded(n_sites))
-        if exact:
-            mol_perm = BS.molecule_sort_permutation(o, box)
-            site_perm = (4 * mol_perm[:, None]
-                         + np.arange(4)[None, :]).reshape(-1)
-            pos4 = np.asarray(positions).reshape(-1, 3)[site_perm]
-            n_act, per_dev, _ = BS.active_tile_pairs_host(
-                pos4, n_sites, box, cfg.cutoff, npad,
-                n_devices=n_devices if n_devices > 1 else None)
-            tile_cap = max(int(margin * n_act) + 8, 16)
-            if n_devices > 1:
-                tile_cap_local = max(int(margin * max(per_dev)) + 8, 16)
-        else:
-            tile_cap = BS.tile_pair_capacity(n_sites, box, cfg.cutoff)
-            if n_devices > 1:
-                tile_cap_local = max(
-                    _round_up(tile_cap, n_devices) // n_devices + 8, 16)
-
     pme_grid = None
     if is_pme:
         if cfg.pme_grid is not None:
@@ -240,17 +198,13 @@ def plan_capacities(n_waters, box, n_devices=1, config=None, positions=None,
                              for b in box)
 
     # dominant per-device working-set terms, f32 (coarse roofline input):
-    # block elec: local tile pairs x 256x256 x (s3,s5,delta) + site matrices
     # dense elec: (npad/nd) x npad x 3 scale tensors
     # PIPs: pair rows x 528 basis + triplet rows x 703 basis (+ quadratic
     # factor intermediates ~4x); PME: site-spline matrices (n_sites x grid
     # dim per axis) + 2 complex grids
     mb = 0.0
-    npad_s = _round_up(n_sites, 256 * n_devices)
-    if mode == 'block' and tile_cap is not None:
-        local_pairs = tile_cap_local or tile_cap
-        mb += local_pairs * 256 * 256 * 4 * 3 / 1e6
-    elif mode == 'dense':
+    npad_s = _round_up(n_sites, n_devices)
+    if mode == 'dense':
         mb += (npad_s // n_devices) * npad_s * 4 * 3 / 1e6
     elif elec_pair_cap:
         mb += elec_pair_cap // n_devices * 9 * 16 * 4 / 1e6
@@ -268,6 +222,5 @@ def plan_capacities(n_waters, box, n_devices=1, config=None, positions=None,
         pair_eval_cap=int(pair_eval_cap), trip_eval_cap=int(trip_eval_cap),
         nlist_k_max=int(k_max), nlist_kt=None if kt is None else int(kt),
         elec_pair_cap=elec_pair_cap, disp_pair_cap=disp_pair_cap,
-        tile_pair_capacity=tile_cap, tile_pair_capacity_local=tile_cap_local,
-        site_perm=site_perm, pme_grid=pme_grid, exact=exact,
+        pme_grid=pme_grid, exact=exact,
         mem_per_device_mb=float(mb))

@@ -1,4 +1,4 @@
-"""System topology and state for the TPU MB-pol framework.
+"""System topology and state for the MB-pol framework.
 
 A `System` holds the *static* description (index arrays, types, masses, box
 flag) as numpy arrays — these shape the jitted computations and never live on
@@ -109,7 +109,7 @@ class System:
 def _contiguous_waters(system: System):
     """True when the layout is the standard stride-4 OHHM block (then all
     per-molecule restructuring is a reshape - no gathers/scatters, whose
-    transposes are scatter-adds that serialize badly on TPU)."""
+    transposes are scatter-adds)."""
     n = system.n_waters
     return bool(np.array_equal(system.o_index, 4 * np.arange(n)))
 

@@ -4,17 +4,16 @@ Long NVE trajectories in float32 drift because the per-step position update
 p += dt*v adds an increment ~4 orders of magnitude below |p| (0.2 fs x
 thermal velocity ~ 1e-4 nm against |p| ~ 1 nm): every step rounds away
 ~half the increment's low bits, a bias-bearing random walk that shows up
-as monotone total-energy drift (measured at water256: ~+48 kJ/mol/ps with
-plain f32 Verlet+ASPC, round 3). Production engines integrate in f64 or
+as monotone total-energy drift. Production engines integrate in f64 or
 64-bit fixed point for exactly this reason (the reference runs OpenMM's
 f64 Reference Verlet throughout, python/example_nvt_nve.py:15-71).
 
-TPU v5e has no fast f64, so the TPU-native equivalent keeps each
-integrated quantity as an UNEVALUATED f32 PAIR (value + compensation):
+Without a fast f64 path, the equivalent keeps each integrated quantity
+as an UNEVALUATED f32 PAIR (value + compensation):
 Neumaier two-sum recovers the bits the naive add rounds away and carries
 them forward, giving ~2x f32 precision (double-single) on the
-accumulated sum while every downstream consumer (force evaluation, PME,
-Pallas kernels) still sees a plain f32 array - only the two adds per
+accumulated sum while every downstream consumer (force evaluation, PME)
+still sees a plain f32 array - only the two adds per
 update change, a measured-negligible cost against the O(N) force work.
 
 No multiplications appear in the error extraction, so FMA contraction

@@ -1,10 +1,10 @@
-// Native host-side neighbor machinery for the TPU MB-pol framework.
+// Native host-side neighbor machinery for the MB-pol framework.
 //
 // Role: the reference implements its neighbor search in native code
 // (OpenMM's computeNeighborListVoxelHash for pairs and the plugin's
 // ReferenceThreeNeighborList for triplets). The jitted on-device list
-// builder (ops/neighbors.py) is O(N^2) in distances, which is fine on TPU
-// up to a few thousand molecules; this C++ voxel-hash builder is the O(N)
+// builder (ops/neighbors.py) is O(N^2) in distances, which is fine on an
+// accelerator up to a few thousand molecules; this C++ voxel-hash builder is the O(N)
 // host path used for very large systems and for capacity planning before
 // compilation.
 //

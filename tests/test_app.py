@@ -280,3 +280,17 @@ def test_create_system_isotope(pdb_dir):
     with pytest.raises(ValueError):
         ff.createSystem(pdb.topology, isotope='D2O',
                         hydrogenMass=2.0 * unit.amu)
+
+
+def test_pdb_from_stream_equals_file(pdb_dir):
+    """PDBFile reads an open text stream like a path (OpenMM's PDBFile
+    accepts both), so a PDB written in memory needs no file."""
+    import io
+    path = pdb_dir['water14']
+    with open(path) as fh:
+        text = fh.read()
+    a = app.PDBFile(path)
+    b = app.PDBFile(io.StringIO(text))
+    np.testing.assert_array_equal(np.asarray(b._positions_nm),
+                                  np.asarray(a._positions_nm))
+    assert b.topology.atom_names == a.topology.atom_names

@@ -111,3 +111,24 @@ def test_pme_force_energy_consistency_directional():
     em, _ = ef(pos - h * u)
     defect = abs(float((ep - em) / (2 * h)) + fu) / abs(fu)
     assert defect < 1e-5, defect
+
+
+def test_convolve_matches_direct_dft():
+    """The reciprocal convolution (jnp.fft, cuFFT on a GPU) equals the
+    unnormalized backward DFT of eterm * DFT(grid), written out as dense
+    DFT matrices on a small non-cubic grid."""
+    setup = P.PmeSetup(alpha=3.0, grid=(5, 6, 4), cutoff=0.9,
+                       box=(1.7, 1.9, 1.6))
+    rng = np.random.default_rng(0)
+    grid = rng.normal(size=setup.grid)
+    et = np.asarray(P._eterm(setup))
+    mats = []
+    for n in setup.grid:
+        k = np.arange(n)
+        mats.append(np.exp(-2j * np.pi * np.outer(k, k) / n))
+    gk = np.einsum('abc,ax,by,cz->xyz', grid, *mats)
+    want = np.einsum('xyz,ax,by,cz->abc', gk * et,
+                     *[m.conj() for m in mats]).real
+    got = np.asarray(P._convolve(setup, jnp.asarray(grid), jnp.float64))
+    np.testing.assert_allclose(got, want, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())

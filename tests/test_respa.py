@@ -1,7 +1,7 @@
 """r-RESPA multiple-timestep integration tests.
 
 The reference integrates with OpenMM's single-timestep Verlet (SURVEY 3.4);
-the TPU framework adds the OpenMM MTSIntegrator / MTSLangevinIntegrator role
+this framework adds the OpenMM MTSIntegrator / MTSLangevinIntegrator role
 natively: the expensive intermolecular terms (PIPs, polarization, dispersion)
 kick at the outer step, the Partridge-Schwenke monomer term - whose OH
 stretch pins MB-pol's 0.2 fs timestep - integrates at dt/n_inner.
@@ -205,8 +205,7 @@ def test_respa3_carried_fast_forces_skip_boundary_reeval():
     """With `f_fast` supplied, respa3_velocity_verlet_step must NOT
     re-evaluate the fast rung at the step boundary: the re-evaluation is
     what injected the per-outer-step force discontinuity when the fast
-    rung is stateful (ASPC predictor vs previous corrected dipoles -
-    measured +35,900 K/ns on chip, artifacts/respa_inner_r05.jsonl), and
+    rung is stateful (ASPC predictor vs previous corrected dipoles), and
     with a carry every ef_fast call must be an inner-loop evaluation at
     a fresh position (exactly n_mid*n_inner calls). For a stateless
     ef_fast the carried step must also be bitwise identical to the

@@ -6,6 +6,7 @@ Goldens from platforms/reference/tests/TestReferenceMBPolThreeBodyForce.cpp:95-1
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mbpol_openmm_plugin_tpu.models.three_body import three_body_energy
 from mbpol_openmm_plugin_tpu.system import System
@@ -113,106 +114,22 @@ def test_triplet_semantics_reference_parity_water50():
     assert abs((vals['complete'] - vals['reference']) - 1.284686) < 1e-4
 
 
-def test_quad_basis_bf16x3_selection_bit_identical(monkeypatch):
-    """The one-hot bf16 MXU selection (3-way exact bf16 split, used on TPU
-    f32) is bit-identical to the static lane gather for both PIP bases."""
-    import jax.numpy as jnp
-
-    from mbpol_openmm_plugin_tpu.ops import polyeval as P
-    rng = np.random.default_rng(0)
-    for name, nv in (('poly3b', 36), ('poly2b', 31)):
-        x = jnp.asarray(rng.uniform(1e-4, 1.0, (97, nv)), jnp.float32)
-        monkeypatch.setenv('MBPOL_PIP_BASIS', 'gather')
-        g = P.quad_basis(x, name)
-        monkeypatch.setenv('MBPOL_PIP_BASIS', 'bf16x3')
-        b = P.quad_basis(x, name)
-        assert bool((np.asarray(g) == np.asarray(b)).all())
-
-
-def test_quad_vech_order_matches_gather(monkeypatch):
-    """The natural vech order (complete degree-<=2 basis as a structured
-    outer product; load_quad_vech) evaluates the same quadratic form as
-    the file-order gather basis, for energies AND gradients."""
-    from mbpol_openmm_plugin_tpu.ops import polyeval as P
-    rng = np.random.default_rng(2)
-    for name, nv in (('poly3b', 36), ('poly2b', 31)):
-        x = jnp.asarray(rng.uniform(1e-4, 1.0, (97, nv)))
-        monkeypatch.setenv('MBPOL_PIP_BASIS', 'gather')
-        F, W = P.load_quad(name)
-        e0, g0 = P.pip_quad_energy_and_grad(x, jnp.asarray(F),
-                                            jnp.asarray(W), name=name)
-        monkeypatch.setenv('MBPOL_PIP_BASIS', 'vech')
-        Fv, Wv = P.load_quad_vech(name)
-        e1, g1 = P.pip_quad_energy_and_grad(x, jnp.asarray(Fv),
-                                            jnp.asarray(Wv), name=name)
-        sc = float(np.abs(np.asarray(e0)).max())
-        assert float(np.max(np.abs(np.asarray(e1 - e0)))) < 1e-12 * sc
-        assert float(np.max(np.abs(np.asarray(g1 - g0)))) < 1e-11 * sc
-
-
-def test_vech_pallas_kernel_interpret_matches_xla():
-    """The fused transposed vech kernel (interpret mode) tracks the f32
-    XLA quad path within the bf16x6-vs-f32 emulation band on physical-
-    range variables."""
-    from mbpol_openmm_plugin_tpu.ops import polyeval as P
-    from mbpol_openmm_plugin_tpu.ops.pip_pallas import \
-        pip_vech_energy_grad_tpu
-    rng = np.random.default_rng(3)
-    for name, nv in (('poly3b', 36), ('poly2b', 31)):
-        xf = rng.uniform(1e-4, 1.0, (300, nv))
-        x64 = jnp.asarray(xf, jnp.float64)
-        x32 = jnp.asarray(xf, jnp.float32)
-        F, W = P.load_quad(name)
-        e0, g0 = P.pip_quad_energy_and_grad(x64, jnp.asarray(F),
-                                            jnp.asarray(W), name=None)
-        ex, gx = P.pip_quad_energy_and_grad(
-            x32, jnp.asarray(F, jnp.float32), jnp.asarray(W, jnp.float32),
-            name=name)
-        e1, g1 = pip_vech_energy_grad_tpu(name, x32, interpret=True)
-        err_xla = float(np.max(np.abs(np.asarray(ex, np.float64)
-                                      - np.asarray(e0))))
-        err_k = float(np.max(np.abs(np.asarray(e1, np.float64)
-                                    - np.asarray(e0))))
-        # the kernel's manual bf16 passes may lose a small factor vs the
-        # XLA HIGHEST codegen but must stay in the same accuracy class
-        assert np.isfinite(err_k)
-        assert err_k < max(20.0 * err_xla, 1e-3), (name, err_k, err_xla)
-        # force path: the F^T contraction + /x gradient must track the f64
-        # oracle VALUE-wise, not just shape-wise - a wrong Ftp permutation,
-        # a dropped /x, or a W-transpose bug all flip this by orders of
-        # magnitude while leaving the energy check green (advisor round 4).
-        # Band: same multiplicative allowance over the f32 XLA gradient
-        # error as the energy check, with an absolute floor for the bf16x6
-        # emulation noise.
-        gsc = float(np.abs(np.asarray(g0)).max())
-        err_g_xla = float(np.max(np.abs(np.asarray(gx, np.float64)
-                                        - np.asarray(g0))))
-        err_g_k = float(np.max(np.abs(np.asarray(g1, np.float64)
-                                      - np.asarray(g0))))
-        assert np.isfinite(err_g_k)
-        assert err_g_k < max(20.0 * err_g_xla, 5e-3 * gsc), \
-            (name, err_g_k, err_g_xla, gsc)
-
-
-def test_pip_typed_config_knobs(monkeypatch):
-    """MBPolConfig.pip_impl/pip_basis select the evaluator without env vars
-    (round-4 verdict: no physics-affecting default reachable only via
-    os.environ), and the vech basis choice drags the matching permuted
-    tables with it (the basis/table coupling is a single resolved value)."""
+def test_pip_typed_config_knobs():
+    """The PIP evaluator has one implementation: MBPolConfig carries no
+    evaluator knobs, so the removed pip_impl/pip_basis options fail at
+    construction instead of selecting a kernel, and the default config
+    evaluates the 2B+3B terms finitely."""
     from mbpol_openmm_plugin_tpu.models.potential import MBPol, MBPolConfig
+    for knob in ('pip_impl', 'pip_basis'):
+        with pytest.raises(TypeError, match=knob):
+            MBPolConfig(**{knob: 'quad'})
     sys_, pos = _as_full_positions(WATER3_POS)
-    monkeypatch.delenv('MBPOL_PIP_BASIS', raising=False)
-    monkeypatch.delenv('MBPOL_PIP_IMPL', raising=False)
-    e_ref = None
-    for impl, basis in ((None, None), ('quad', 'vech'), ('monomial', None)):
-        pot = MBPol(sys_, MBPolConfig(terms=('two_body', 'three_body'),
-                                      pip_impl=impl, pip_basis=basis))
-        e, _, parts, _ = pot.energy_forces(jnp.asarray(pos))
-        if e_ref is None:
-            e_ref = float(e)
-        else:
-            assert abs(float(e) - e_ref) < 1e-6 * max(1.0, abs(e_ref)), \
-                (impl, basis, float(e), e_ref)
+    pot = MBPol(sys_, MBPolConfig(terms=('two_body', 'three_body')))
+    e, f, parts, _ = pot.energy_forces(jnp.asarray(pos))
+    assert np.isfinite(float(e)) and np.isfinite(np.asarray(f)).all()
+    np.testing.assert_allclose(float(e),
+                               float(parts['two_body'] + parts['three_body']),
+                               rtol=1e-12)
 
 
 def test_scf_eps_floor_typed_config():

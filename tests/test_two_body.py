@@ -7,6 +7,7 @@ the PBC-imaging invariance test (:174-229).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mbpol_openmm_plugin_tpu.models.two_body import two_body_energy
 from mbpol_openmm_plugin_tpu.system import System
@@ -99,3 +100,26 @@ def test_quad_basis_gather_matches_exponent_form():
         m2_exp = jnp.exp(jnp.log(x) @ jnp.asarray(F.T, x.dtype))
         np.testing.assert_allclose(np.asarray(m2_gather), np.asarray(m2_exp),
                                    rtol=1e-12)
+
+
+@pytest.mark.parametrize('name', ['poly2b', 'poly3b'])
+def test_monomial_reference_matches_quad_form(name):
+    """The plain monomial expansion (the PIP reference, HIGHEST precision)
+    and the quadratic-form evaluator used in production agree on energies
+    and gradients in float64."""
+    from mbpol_openmm_plugin_tpu.ops import polyeval as PE
+    rng = np.random.default_rng(1)
+    pip = PE.load_pip(name)
+    F, W = PE.load_quad(name)
+    x = jnp.asarray(rng.uniform(0.05, 0.9, size=(32, pip.nvars)))
+    e_m, g_m = PE.pip_energy_and_grad(x, jnp.asarray(pip.exponents),
+                                      jnp.asarray(pip.coeffs))
+    e_q, g_q = PE.pip_quad_energy_and_grad(x, jnp.asarray(F), jnp.asarray(W),
+                                           name=name)
+    sc = float(np.abs(np.asarray(e_m)).max())
+    np.testing.assert_allclose(np.asarray(e_q), np.asarray(e_m),
+                               atol=1e-9 * sc)
+    np.testing.assert_allclose(np.asarray(g_q), np.asarray(g_m),
+                               atol=1e-8 * float(np.abs(np.asarray(g_m)).max()))
+    np.testing.assert_allclose(np.asarray(PE.pip_apply(name)(x)),
+                               np.asarray(e_q), rtol=1e-13, atol=1e-13 * sc)

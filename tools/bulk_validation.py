@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Bulk-observable validation against published MB-pol liquid-water values.
 
-Round-3 verdict item 5: density, g_OO(r) and D_self were computed
-(examples/bulk_properties.py) but never pinned against the literature
-values MB-pol is famous for reproducing - a silently-wrong production
-force path could ship. This tool runs the full production pipeline on
-the real chip and asserts loose bands:
+Density, g_OO(r) and D_self (examples/bulk_properties.py) pinned against
+the literature values MB-pol is known for reproducing - a silently-wrong
+production force path must not ship. This tool runs the full production
+pipeline on the accelerator and asserts loose bands:
 
   1. NPT (Langevin + MC barostat, 298.15 K / 1 bar, --npt-ps):
        mean density over the second half.
@@ -18,13 +17,13 @@ the real chip and asserts loose bands:
        (MB-pol: ~0.276 nm / ~3.1); D_self(COM, Einstein) 1.0e-5 -
        3.5e-5 cm^2/s (MB-pol classical ~2.2e-5; N=256 finite-size
        depresses it ~10%). Production runs NVE by default (dynamics
-       uncorrupted by thermostat noise) - requires the round-4
-       low-drift integrator settings; --thermostat langevin falls back
+       uncorrupted by thermostat noise) - requires the low-drift
+       integrator settings; --thermostat langevin falls back
        to weak-friction Langevin (0.2/ps) if NVE drift is still too
        large for 100 ps windows.
 
 Prints one JSON line with every observable + band verdicts; exits 1 if
-any band fails. ~15-30 min of chip time at the defaults.
+any band fails.
 """
 import argparse
 import json
@@ -58,10 +57,8 @@ def main():
     a = ap.parse_args()
 
     import jax
-    jax.config.update('jax_compilation_cache_dir',
-                      os.environ.get('JAX_COMPILATION_CACHE_DIR',
-                                     '/tmp/mbpol_jax_cache'))
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 2.0)
+    from mbpol_openmm_plugin_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     jax.config.update('jax_default_matmul_precision', 'highest')
     import jax.numpy as jnp
 

@@ -8,7 +8,7 @@ This probe records E_tot at EVERY step for a few thousand steps, plus the
 rebuild indicator and min r_OO, so jumps can be correlated with discrete
 events (list rebuilds, close encounters) vs continuous pumping.
 
-Usage (on chip): python tools/drift_probe.py --steps 2000 --scf aspc
+Usage (GPU): python tools/drift_probe.py --steps 2000 --scf aspc
 Writes /tmp/drift_probe_<scf>.npz and prints a JSON summary.
 """
 import argparse

@@ -11,7 +11,7 @@ moment surface coefficients, Thole/switching constants) as C arrays:
   - platforms/reference/src/MBPolReferenceElectrostaticsForce.cpp (84-term DMS, in computeWaterCharge)
 
 These are *data* (physics fit parameters), not code.  This script parses them
-into .npz archives consumed by the TPU framework at import time, so the
+into .npz archives consumed by the framework at import time, so the
 framework itself is standalone.
 
 Usage: python tools/extract_constants.py [--reference /root/reference] [--out mbpol_openmm_plugin_tpu/data]

@@ -2,7 +2,7 @@
 """Extract the reference test geometries (PDB fixtures) into npz archives.
 
 The golden energies in the reference test-suite are computed from the PDB
-coordinates (3 decimals, Angstrom), so tests of the TPU framework must use
+coordinates (3 decimals, Angstrom), so tests of this framework must use
 bit-identical geometries. Fixtures are stored as npz (positions in nm plus
 atom metadata); tests/round-trips regenerate PDB text with our own writer.
 """

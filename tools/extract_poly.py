@@ -4,7 +4,7 @@
 The reference evaluates its permutationally-invariant polynomials with
 machine-generated straight-line C++ (poly-2b-v6x.cpp: 13.8k LoC, 1153 linear
 fit coefficients over 31 variables; poly-3b-v2x.cpp: 28.4k LoC, 1163 coeffs
-over 36 variables).  That form is hostile to TPUs.  Here we recover the
+over 36 variables).  That form is hostile to accelerators.  Here we recover the
 underlying mathematical object - a sparse polynomial
 
     E(x) = sum_m  c_m * prod_i x_i^{e_mi},      c_m = sum_k w_mk * a_k
@@ -16,7 +16,7 @@ expanding the energy expression.  The result is stored as:
     coeffs    : (n_mono,) float64, already contracted with the fit vector a
 
 At runtime the polynomial and its gradient are then two matmuls
-(see mbpol_openmm_plugin_tpu/ops/polyeval.py), which map onto the TPU MXU.
+(see mbpol_openmm_plugin_tpu/ops/polyeval.py), which map onto matrix units.
 
 The extraction is validated exactly: the original C++ file is compiled to a
 shared library and compared against the expanded form at random points

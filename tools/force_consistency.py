@@ -1,14 +1,12 @@
 #!/usr/bin/env python
 """Directional-derivative force/energy consistency probe, per term.
 
-Round-5 drift forensics: water256 f32 NVE heats at ~+1000 K/ns even with
-FULLY CONVERGED induced dipoles (SOR eps 1e-6 arm) and with integration
-rounding compensated (Kahan arm), while the measured f32-vs-f64 force
-rounding predicts ~0 K/ns of white-noise heating. That leaves a
-SYSTEMATIC inconsistency between the energy surface and the explicit
-forces as a candidate: a missing or mis-scaled force term of relative
-size ~5e-5 would inject the observed 2.5e-3 kJ/mol/step while hiding
-below every golden-force tolerance (1e-3..1e-4 kcal/mol/A).
+Drift forensics: when f32 NVE heats even with FULLY CONVERGED induced
+dipoles and compensated integration, while the f32-vs-f64 force rounding
+predicts little white-noise heating, a SYSTEMATIC inconsistency between
+the energy surface and the explicit forces is the candidate: a missing
+or mis-scaled force term of relative size ~5e-5 hides below every
+golden-force tolerance (1e-3..1e-4 kcal/mol/A).
 
 This probe measures, in float64 on CPU (exact same code paths, dense
 mode), the relative defect

@@ -1,16 +1,15 @@
 #!/usr/bin/env python
 """Long-horizon NVE energy-drift measurement at production settings.
 
-Round-3 verdict item 1: the recorded NVE windows were 0.2 ps - far too
-short to state a production drift number (engines quote K/ns). This tool
-runs water256 f32 NVE for tens-to-hundreds of picoseconds on the real
-chip and reports the TOTAL-energy drift as a linear fit over segment
+A 0.2 ps NVE window is far too short to state a production drift number
+(engines quote K/ns). This tool runs water256 f32 NVE for
+tens-to-hundreds of picoseconds on the accelerator and reports the TOTAL-energy drift as a linear fit over segment
 boundaries, in both kJ/mol/ns and K/ns (Delta E / ((3N/2) k_B)).
 
 Protocol anchor: the reference's f64 NVT->NVE example
 (/root/reference/python/example_nvt_nve.py:15-71), which is drift-free by
 construction (double precision Verlet); this tool measures what the
-TPU-native f32 path achieves and is the A/B harness for the mitigations:
+f32 path achieves and is the A/B harness for the mitigations:
 
   --kahan          compensated (Neumaier) position/velocity accumulation
                    (utils/compensated.py) - recovers the low bits the
@@ -18,7 +17,7 @@ TPU-native f32 path achieves and is the A/B harness for the mitigations:
   --aspc-k K       Kolafa predictor order (higher = smaller closure error)
   --dt-fs          timestep (default 0.2 fs, the MB-pol OH-stretch limit)
 
-Usage (on chip):  python tools/nve_drift.py --steps 250000 --kahan
+Usage (GPU):  python tools/nve_drift.py --steps 250000 --kahan
 Output: one JSON line per variant.
 """
 import argparse
@@ -40,10 +39,8 @@ def build(dt_fs, aspc_k, kahan, n_corr=1, scf='aspc', epsilon=1e-3,
           terms=None, ewald_tol=1e-4, disp_switch=0.0, skin=0.02,
           therm_temp=300.0, seed=0):
     import jax
-    jax.config.update('jax_compilation_cache_dir',
-                      os.environ.get('JAX_COMPILATION_CACHE_DIR',
-                                     '/tmp/mbpol_jax_cache'))
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 2.0)
+    from mbpol_openmm_plugin_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     jax.config.update('jax_default_matmul_precision', 'highest')
     import jax.numpy as jnp
 

@@ -1,16 +1,10 @@
 #!/usr/bin/env python
-"""RESPA NVE drift A/B harness (round 5).
+"""RESPA NVE drift A/B harness.
 
-After the round-5 conservation fixes the single-step ASPC path holds
-water256 f32 NVE to +5-15 K/ns, but the three-level r-RESPA point
-(mid=3, inner=2, ASPC closure on the middle rung) still drifts at
-~-1500 K/ns over 10 ps (BENCH r05) - DISSIPATIVE, the signature of
-dipole-closure lag rather than impulse-MTS noise. The measured ladder
-lives in artifacts/respa_drift_r05.jsonl (mid-rung arms) and
-artifacts/respa_inner_r05.jsonl (--polar-rung inner: -99 to -182 K/ns
-after the f_fast-carry fix, at the ladder's 1.2 fs impulse-noise
-floor); analysis in docs/DESIGN.md. This harness measures drift per
-variant:
+The three-level r-RESPA point (mid=3, inner=2, ASPC closure on the
+middle rung) drifts far more than the single-step ASPC path, and
+DISSIPATIVELY - the signature of dipole-closure lag rather than
+impulse-MTS noise. This harness measures drift per variant:
 
   --scf keep|auto       'keep' runs the potential's own SCF (converged
                         loop) on the middle rung; 'auto' derives ASPC
@@ -19,7 +13,7 @@ variant:
   --n-corr              ASPC corrector depth (with --scf auto)
   --mid/--inner         RESPA ladder
 
-Usage (chip): python tools/respa_drift.py --steps 8333 --mid 3
+Usage (GPU): python tools/respa_drift.py --steps 8333 --mid 3
 """
 import argparse
 import json
@@ -50,10 +44,8 @@ def main():
     a = ap.parse_args()
 
     import jax
-    jax.config.update('jax_compilation_cache_dir',
-                      os.environ.get('JAX_COMPILATION_CACHE_DIR',
-                                     '/tmp/mbpol_jax_cache'))
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 2.0)
+    from mbpol_openmm_plugin_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     jax.config.update('jax_default_matmul_precision', 'highest')
     import jax.numpy as jnp
 

@@ -1,16 +1,14 @@
 #!/usr/bin/env python
 """Per-term f32 force noise vs the f64 oracle + predicted NVE heating.
 
-Round-5 drift forensics stage 2: the no-electrostatics water256 NVE arm
-heats at +575 K/ns and the drift scales ~linearly with dt - the
+Drift forensics: NVE heating that scales ~linearly with dt is the
 signature of white force noise (heating per ns = sum dF^2 dt / 2m).
-This tool measures dF per TERM for the PRODUCTION evaluation path
-(f32; on the chip this is the Pallas/HIGHEST path the drift runs use)
+This tool measures dF per TERM for the PRODUCTION evaluation path (f32)
 against a float64 CPU oracle, and converts each term's noise to a
 predicted heating rate at dt = 0.2 fs.
 
 Stage 1 (CPU):  JAX_PLATFORMS=cpu python tools/term_force_noise.py --oracle
-Stage 2 (chip): python tools/term_force_noise.py
+Stage 2 (GPU):  python tools/term_force_noise.py
 """
 import argparse
 import json
@@ -31,7 +29,8 @@ def build(term, dtype_bits, positions_f64=None):
     if dtype_bits == 64:
         jax.config.update('jax_enable_x64', True)
     jax.config.update('jax_default_matmul_precision', 'highest')
-    jax.config.update('jax_compilation_cache_dir', '/tmp/mbpol_jax_cache')
+    from mbpol_openmm_plugin_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     from mbpol_openmm_plugin_tpu.models.potential import MBPol, MBPolConfig
     from mbpol_openmm_plugin_tpu.system import System, compute_virtual_sites
